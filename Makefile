@@ -1,14 +1,9 @@
 # Convenience targets; see CLAUDE.md for the full command list.
 
-.PHONY: gates test native
-
-# Run ALL driver gates (bench on the real chip, 8-device dryrun, entry
-# compile) exactly as the round driver does. Run before every snapshot.
-gates:
-	python tools/gates.py
+.PHONY: test native
 
 test:
-	python -m pytest tests/ -x -q -m "not slow"
+	JAX_PLATFORMS=cpu python -m pytest tests/ -x -q -m "not slow"
 
 native:
 	$(MAKE) -C tools/native

@@ -18,11 +18,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbm_tpu.core.units import UnitSystem
-from lbm_tpu.engine.compile import compile_case
-from lbm_tpu.engine.spec import CaseSpec, PlaneBC
-from lbm_tpu.engine.step import initial_f, macro_fields, make_step
-from lbm_tpu.geometry.mask import CellType
+from lbm_jax.core.units import UnitSystem
+from lbm_jax.engine.compile import compile_case
+from lbm_jax.engine.spec import CaseSpec, PlaneBC
+from lbm_jax.engine.step import initial_f, macro_fields, make_step
+from lbm_jax.geometry.mask import CellType
 
 # --- Ghia, Ghia & Shin (1982), Re=100, Tables I & II ---------------------
 # u through the vertical centerline (y from lid=1 to floor=0):
@@ -186,7 +186,7 @@ def test_womersley_pipe():
          staircase-wall uncertainty band derived from the mask (the
          eroded wall ring puts the bounce-back surface ~1 cell inside
          the nominal disc; measured best-fit rms 2.2%)."""
-    from lbm_tpu.geometry.shapes import pipe_mask
+    from lbm_jax.geometry.shapes import pipe_mask
 
     nxz, ny = 32, 64
     tau = 0.58

@@ -10,11 +10,11 @@ symmetric quench toward the +-1 bulk minima.
 import numpy as np
 import pytest
 
-from lbm_tpu.core.units import UnitSystem
-from lbm_tpu.engine.binary import (BinaryFluid, interface_width,
+from lbm_jax.core.units import UnitSystem
+from lbm_jax.engine.binary import (BinaryFluid, interface_width,
                                    surface_tension)
-from lbm_tpu.engine.spec import CaseSpec
-from lbm_tpu.geometry.mask import CellType
+from lbm_jax.engine.spec import CaseSpec
+from lbm_jax.geometry.mask import CellType
 
 _UNITS = UnitSystem(CH=1.0, C_U=1.0, C_rho=1.0)
 _A, _K = 0.02, 0.08  # xi = 2.83 cells (a sub-2-cell interface is
@@ -67,7 +67,7 @@ def test_gibbs_thomson_droplet_matches_analytic_sigma():
     Soft capillary stiffness: sigma ~ 4e-3-class parameters keep the
     explicit coupling stable (10x stiffer interfaces NaN the flow
     feedback by ~500 steps, measured)."""
-    from lbm_tpu.engine.binary import chemical_potential
+    from lbm_jax.engine.binary import chemical_potential
 
     A, K = 0.002, 0.008               # xi = 2.83, sigma = 3.77e-3
     sig = surface_tension(A, K)

@@ -16,13 +16,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbm_tpu.cases import get_case
-from lbm_tpu.cases.pipe import pipe_sdf
-from lbm_tpu.engine.compile import compile_case
-from lbm_tpu.engine.runner import Simulation
-from lbm_tpu.engine.sparse import compile_sparse, initial_f_sparse, \
+from lbm_jax.cases import get_case
+from lbm_jax.cases.pipe import pipe_sdf
+from lbm_jax.engine.compile import compile_case
+from lbm_jax.engine.runner import Simulation
+from lbm_jax.engine.sparse import compile_sparse, initial_f_sparse, \
     make_sparse_step, scatter_dense
-from lbm_tpu.engine.step import initial_f, make_step
+from lbm_jax.engine.step import initial_f, make_step
 
 
 def _run_dense(spec, nsteps):
@@ -94,7 +94,7 @@ def test_pipe_sparse_matches_dense():
     spec = get_case("pipe", n=20, nz=4, radius=5.6)
     nsteps = 6
     cc, f_dense = _run_dense(spec, nsteps)
-    sc = compile_sparse(spec, lane_multiple=256)
+    sc = compile_sparse(spec)
     assert sc.link_q is not None
     step = jax.jit(make_sparse_step(sc))
     f = initial_f_sparse(sc)
@@ -110,7 +110,7 @@ def test_pipe_sparse_matches_dense():
 def test_pipe_gspmd_sharded_matches_dense():
     """Bouzidi's link arrays are plain per-direction fields, so the
     GSPMD partitioner shards them with the state."""
-    from lbm_tpu.parallel.mesh import lattice_mesh
+    from lbm_jax.parallel.mesh import lattice_mesh
 
     spec = get_case("pipe", n=24, nz=8, radius=6.6)
     sim1 = Simulation(spec, backend="xla")
@@ -142,7 +142,7 @@ def test_pipe_wss_sdf_normals_beat_voxel_normals():
     estimate; measured here (n=36, R=13.7): max rel error 14.2% -> 1.7%
     and p90 7.4% -> 1.1% — the staircase NORMAL direction, not the
     stress tensor, dominates the curved-wall WSS tail."""
-    from lbm_tpu.engine.stress import wall_normals, wss_field
+    from lbm_jax.engine.stress import wall_normals, wss_field
 
     n, radius = 36, 13.7
     spec = get_case("pipe", n=n, nz=4, curved=True, radius=radius)
@@ -187,7 +187,7 @@ def test_coronary_curved_variant_sparse_matches_dense():
     lq = np.asarray(cc.link_q)
     # real fractional distances, not the all-half-way degenerate case
     assert (np.abs(lq - 0.5) > 0.05).sum() > 100
-    sc = compile_sparse(spec, lane_multiple=256)
+    sc = compile_sparse(spec)
     step = jax.jit(make_sparse_step(sc))
     f = initial_f_sparse(sc)
     for t in range(nsteps):
@@ -208,7 +208,7 @@ def test_coronary_curved_wss_ring():
     Measured (3000 steps, tau=0.8, shape 64x32x48, r=6): curved
     cv 0.070/0.111 vs voxel 0.128/0.147 at x=12/14, mean/pred 0.945
     (cell centers sit half a link inside the wall) vs voxel 1.09."""
-    from lbm_tpu.geometry.mask import CellType
+    from lbm_jax.geometry.mask import CellType
 
     def ring_stats(curved):
         spec = get_case("coronary", shape=(64, 32, 48), radius=6,
@@ -235,12 +235,6 @@ def test_coronary_curved_wss_ring():
     for (mc, cvc), (mv, cvv) in zip(sc, sv):
         assert 0.85 < mc < 1.05, f"curved mean/pred {mc:.3f}"
         assert cvc < 0.8 * cvv, f"curved cv {cvc:.3f} vs voxel {cvv:.3f}"
-
-
-def test_pallas_backend_refuses_wall_sdf():
-    spec = get_case("pipe", n=20, nz=4, radius=5.6)
-    with pytest.raises(ValueError, match="wall_sdf"):
-        Simulation(spec, backend="pallas")
 
 
 def test_auto_backend_falls_back_to_xla():

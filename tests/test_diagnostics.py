@@ -15,9 +15,9 @@ quantity has an independent prediction:
 
 import numpy as np
 
-from lbm_tpu.cases import get_case
-from lbm_tpu.engine.diagnostics import ffr, plane_flux, plane_pressure
-from lbm_tpu.engine.runner import Simulation
+from lbm_jax.cases import get_case
+from lbm_jax.engine.diagnostics import ffr, plane_flux, plane_pressure
+from lbm_jax.engine.runner import Simulation
 
 _WK = (5e-4, 24000.0, 2.5e-3)
 
@@ -27,7 +27,7 @@ def test_ffr_grades_a_stenosis():
     stenosis=severity, smooth cosine throat) must raise the trans-tree
     pressure drop and lower FFR at EVERY outlet relative to the same
     tree without the lesion — all four outflows pass the throat."""
-    from lbm_tpu.engine.diagnostics import MMHG_PER_PA  # noqa: F401
+    from lbm_jax.engine.diagnostics import MMHG_PER_PA  # noqa: F401
     wk = [(2e-4, 5e3, 1e-3)] + [(2e-4, 5e3, 3e-3)] * 3
     kw = dict(shape=(64, 28, 44), radius=6, windkessel=wk)
     spec_h = get_case("coronary", **kw)

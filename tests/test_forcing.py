@@ -11,9 +11,9 @@ with BGK and TRT.
 Covered:
   * exact uniform acceleration on a fully periodic all-fluid box
     (u after n steps == (n - 1/2) F — the discrete-exact invariant),
-  * cross-backend equivalence of forced runs (dense / sparse / Pallas,
-    incl. fuse=2, the NEE row fix, and the coronary z-plane fixup),
-  * the gravity_channel case (duct along the kernel's periodic z axis),
+  * cross-backend equivalence of forced runs (dense / sparse, incl.
+    the NEE row fix and the coronary z-plane fixup),
+  * the gravity_channel case (duct along the periodic z axis),
   * physics: the gravity-driven plane channel reproduces the analytic
     parabola — BGK to its tau-dependent slip error, TRT (magic 3/16)
     to the fp32 floor (measured 5.1e-2 vs 1.0e-4 at tau = 1.3).
@@ -26,18 +26,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbm_tpu.cases import get_case
-from lbm_tpu.core.units import UnitSystem
-from lbm_tpu.engine.compile import compile_case
-from lbm_tpu.engine.spec import CaseSpec
-from lbm_tpu.engine.step import initial_f, make_step
-from lbm_tpu.geometry.mask import CellType
-from lbm_tpu.kernels.collide_stream import (
-    make_pallas_step,
-    pack_state,
-    pad_spec,
-    unpack_state,
-)
+from lbm_jax.cases import get_case
+from lbm_jax.core.units import UnitSystem
+from lbm_jax.engine.compile import compile_case
+from lbm_jax.engine.spec import CaseSpec
+from lbm_jax.engine.step import initial_f, make_step
+from lbm_jax.geometry.mask import CellType
+
+from backend_parity import assert_sparse_matches_dense
 
 _UNITS = UnitSystem(CH=1e-4, C_U=1.0, C_rho=1000.0)
 
@@ -49,14 +45,6 @@ def _dense_run(cc, f0, nsteps):
     for t in range(nsteps):
         f, rho, u = step(f, jnp.int32(t))
     return np.asarray(f), np.asarray(u)
-
-
-def _pallas_run(cc, f0, nsteps, per_call=1, **kw):
-    step = jax.jit(make_pallas_step(cc, interpret=True, **kw))
-    p = pack_state(f0, jnp.asarray(np.asarray(cc.spec.mask)))
-    for t in range(nsteps // per_call):
-        p, _ = step(p, jnp.int32(per_call * t))
-    return np.asarray(unpack_state(p))
 
 
 def test_uniform_acceleration_exact():
@@ -75,66 +63,27 @@ def test_uniform_acceleration_exact():
 
 
 @pytest.mark.parametrize("collision", ["bgk", "trt"])
-def test_forced_pallas_matches_dense(collision):
-    spec = pad_spec(dataclasses.replace(
+def test_forced_sparse_cavity_matches_dense(collision):
+    assert_sparse_matches_dense(dataclasses.replace(
         get_case("lid_driven_cavity", n=16, u_lid_phys=0.0),
-        force=(1e-5, 2e-5, -1e-5), collision=collision))
-    cc = compile_case(spec)
-    f0 = initial_f(cc)
-    f_ref, _ = _dense_run(cc, f0, 5)
-    f = _pallas_run(cc, f0, 5)
-    interior = (slice(None), slice(1, -1), slice(1, -1), slice(None))
-    np.testing.assert_allclose(
-        f[interior], f_ref[interior], rtol=3e-6, atol=1e-7
-    )
+        force=(1e-5, 2e-5, -1e-5), collision=collision), nsteps=5)
 
 
-@pytest.mark.slow  # fuse2 interpret traces dominate the fast suite; BGK fuse2 stays fast via the runner odd-chunk test
-def test_forced_pallas_fuse2_matches_dense():
-    spec = pad_spec(dataclasses.replace(
-        get_case("lid_driven_cavity", n=16), force=(1e-5, 0.0, 2e-5)),
-        halo=2)
-    cc = compile_case(spec)
-    f0 = initial_f(cc)
-    f_ref, _ = _dense_run(cc, f0, 4)
-    f = _pallas_run(cc, f0, 4, per_call=2, ring=2, fuse=2)
-    interior = (slice(None), slice(2, -2), slice(2, -2), slice(None))
-    np.testing.assert_allclose(
-        f[interior], f_ref[interior], rtol=3e-6, atol=1e-7
-    )
+def test_forced_sparse_nee_rows_match_dense():
+    """Forced case WITH x/y NEE boundaries: the plane fixups under
+    forcing (shifted previous-macro + source)."""
+    assert_sparse_matches_dense(dataclasses.replace(
+        get_case("poiseuille", n=16), force=(0.0, 1e-5, 0.0)), nsteps=5)
 
 
-def test_forced_pallas_nee_rows_match_dense():
-    """Forced case WITH x/y NEE boundaries exercises the in-kernel
-    _row_fix under forcing (shifted previous-macro + source)."""
-    spec = pad_spec(dataclasses.replace(
-        get_case("poiseuille", n=16), force=(0.0, 1e-5, 0.0)))
-    cc = compile_case(spec)
-    f0 = initial_f(cc)
-    f_ref, _ = _dense_run(cc, f0, 5)
-    f = _pallas_run(cc, f0, 5)
-    interior = (slice(None), slice(1, -1), slice(1, -1), slice(None))
-    np.testing.assert_allclose(
-        f[interior], f_ref[interior], rtol=3e-6, atol=1e-7
-    )
-
-
-def test_forced_pallas_z_fixup_matches_dense():
-    spec = pad_spec(dataclasses.replace(
+def test_forced_sparse_z_fixup_matches_dense():
+    assert_sparse_matches_dense(dataclasses.replace(
         get_case("coronary", shape=(24, 20, 32), radius=4),
         force=(0.0, 0.0, -1e-5), collision="trt"))
-    cc = compile_case(spec)
-    f0 = initial_f(cc)
-    f_ref, _ = _dense_run(cc, f0, 4)
-    f = _pallas_run(cc, f0, 4)
-    interior = (slice(None), slice(1, -1), slice(1, -1), slice(None))
-    np.testing.assert_allclose(
-        f[interior], f_ref[interior], rtol=3e-6, atol=1e-7
-    )
 
 
 def test_forced_sparse_matches_dense():
-    from lbm_tpu.engine.sparse import (
+    from lbm_jax.engine.sparse import (
         compile_sparse,
         initial_f_sparse,
         make_sparse_step,
@@ -161,7 +110,7 @@ def test_gravity_channel_case_runs():
     """The registered duct case: no BCs at all, flow sustained purely
     by the force; runner converges toward steady duct flow and macro()
     reports a force-shifted, finite field."""
-    from lbm_tpu.engine.runner import Simulation
+    from lbm_jax.engine.runner import Simulation
 
     sim = Simulation(get_case("gravity_channel", n=16, nz=16, fz=2e-5,
                               max_steps=400, time_save=100))

@@ -5,15 +5,15 @@ bifurcation geometry (SURVEY.md section 7 step 2)."""
 import numpy as np
 import pytest
 
-from lbm_tpu.geometry.io import load_bc, load_geo
-from lbm_tpu.geometry.mask import (
+from lbm_jax.geometry.io import load_bc, load_geo
+from lbm_jax.geometry.mask import (
     CellType,
     compact_index,
     end_plane_copy_label,
     erode_label,
     ghost_dilate,
 )
-from lbm_tpu.geometry.shapes import cavity_mask, pipe_mask
+from lbm_jax.geometry.shapes import cavity_mask, pipe_mask
 
 BIF_SHAPE = (64, 83, 32)
 
@@ -61,7 +61,7 @@ def _reference_geo_pre_loops(flag: np.ndarray) -> np.ndarray:
             for z in range(1, nz - 1):
                 ref = geo[x, ny - 3, z]
                 geo[x, ny - 2, z] = 1 if ref == 1 else (3 if ref == 4 else 0)
-    from lbm_tpu.core.lattice import D3Q19
+    from lbm_jax.core.lattice import D3Q19
 
     out = geo.copy()
     walls = np.argwhere(geo[1:-1, 1:-1, 1:-1] == 1) + 1
@@ -155,7 +155,7 @@ def test_compact_index_order():
 def test_geo_save_load_roundtrip_both_orders(tmp_path):
     rng = np.random.default_rng(5)
     flag = (rng.random((6, 5, 4)) < 0.4).astype(np.int32)
-    from lbm_tpu.geometry.io import save_geo
+    from lbm_jax.geometry.io import save_geo
 
     for order in ("xyz", "yxz"):
         p = str(tmp_path / f"g_{order}.txt")
@@ -165,7 +165,7 @@ def test_geo_save_load_roundtrip_both_orders(tmp_path):
 
 
 def test_unit_system_derivation():
-    from lbm_tpu.core.units import UnitSystem
+    from lbm_jax.core.units import UnitSystem
 
     # Reproduce ldc.cu:49's constants from the physical case parameters
     # (nu = 2.7e-6 m^2/s, CH = 6.55737e-5 m, tau = 0.55).

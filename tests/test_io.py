@@ -7,11 +7,11 @@ import sys
 
 import numpy as np
 
-from lbm_tpu.cases import get_case
-from lbm_tpu.engine import checkpoint as ckpt
-from lbm_tpu.engine.runner import Simulation
-from lbm_tpu.io.vtk import case_vtk, write_structured_points
-from lbm_tpu.io.snapshots import write_bc_csv, write_midplane
+from lbm_jax.cases import get_case
+from lbm_jax.engine import checkpoint as ckpt
+from lbm_jax.engine.runner import Simulation
+from lbm_jax.io.vtk import case_vtk, write_structured_points
+from lbm_jax.io.snapshots import write_bc_csv, write_midplane
 
 
 def test_vtk_ascii_format(tmp_path):
@@ -95,10 +95,10 @@ def test_checkpoint_rejects_wrong_case(tmp_path):
 
 def test_cli_end_to_end(tmp_path):
     env = dict(os.environ)
-    env["LBM_TPU_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     out = tmp_path / "out"
     r = subprocess.run(
-        [sys.executable, "-m", "lbm_tpu", "run", "--case", "lid_driven_cavity",
+        [sys.executable, "-m", "lbm_jax", "run", "--case", "lid_driven_cavity",
          "--out", str(out), "--steps", "20", "--time-save", "10",
          "--checkpoint-every", "1", "--opt", "n=16"],
         capture_output=True, text=True, env=env,
@@ -115,7 +115,7 @@ def test_cli_end_to_end(tmp_path):
 
 def test_cli_list():
     r = subprocess.run(
-        [sys.executable, "-m", "lbm_tpu", "list"],
+        [sys.executable, "-m", "lbm_jax", "list"],
         capture_output=True, text=True,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     )
@@ -128,9 +128,9 @@ def test_cli_list():
 def test_cli_snapshots(tmp_path):
     out = tmp_path / "out"
     env = dict(os.environ)
-    env["LBM_TPU_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     r = subprocess.run(
-        [sys.executable, "-m", "lbm_tpu", "run", "--case", "lid_driven_cavity",
+        [sys.executable, "-m", "lbm_jax", "run", "--case", "lid_driven_cavity",
          "--out", str(out), "--steps", "10", "--time-save", "10",
          "--no-vtk", "--snapshots", "--backend", "xla", "--opt", "n=16"],
         capture_output=True, text=True, env=env,
@@ -148,9 +148,9 @@ def test_cli_vtk_final(tmp_path):
     31M-cell grid dominates wall time)."""
     out = tmp_path / "out"
     env = dict(os.environ)
-    env["LBM_TPU_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     r = subprocess.run(
-        [sys.executable, "-m", "lbm_tpu", "run", "--case",
+        [sys.executable, "-m", "lbm_jax", "run", "--case",
          "lid_driven_cavity", "--out", str(out), "--steps", "10",
          "--time-save", "5", "--vtk-final", "--backend", "xla",
          "--opt", "n=16"],
@@ -164,7 +164,7 @@ def test_cli_vtk_final(tmp_path):
 
 
 def test_write_live_velocities(tmp_path):
-    from lbm_tpu.io.snapshots import write_live_velocities
+    from lbm_jax.io.snapshots import write_live_velocities
 
     sim = Simulation(get_case("lid_driven_cavity", n=8))
     rho, u = sim.macro()
@@ -182,8 +182,8 @@ def test_midplane_ingest_roundtrip(tmp_path):
     """read_midplane inverts write_midplane_fluid (the reference's
     measured-data ingest, bifurcation.cu:255-291) and compare_midplane
     reports zero error against the run it came from."""
-    from lbm_tpu.geometry.mask import CellType
-    from lbm_tpu.io.snapshots import (
+    from lbm_jax.geometry.mask import CellType
+    from lbm_jax.io.snapshots import (
         compare_midplane,
         read_midplane,
         write_midplane_fluid,

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from lbm_tpu.core.lattice import D3Q19, feq, moments, phi
+from lbm_jax.core.lattice import D3Q19, feq, moments, phi
 
 
 def test_weights_normalized():

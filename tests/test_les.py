@@ -9,9 +9,8 @@ nu_eff = nu0 + (Cs D)^2 |S| with no extra state carried.
 
 Covered:
   * Cs -> 0 degenerates to BGK (sqrt(tau^2) folds back),
-  * cross-backend equivalence (dense / sparse / Pallas incl. fuse=2
-    and the coronary z-plane fixup; Pi is parity-even, so the kernel
-    builds it from the 9 pair sums only),
+  * cross-backend equivalence (dense / sparse, incl. the coronary
+    z-plane fixup),
   * the stability payoff: three under-resolved high-Re cavity configs
     where BOTH plain BGK and MRT blow up within 250 steps run stably
     under LES (the eddy viscosity activates exactly at the sharp
@@ -27,15 +26,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbm_tpu.cases import get_case
-from lbm_tpu.engine.compile import compile_case
-from lbm_tpu.engine.step import initial_f, make_step
-from lbm_tpu.kernels.collide_stream import (
-    make_pallas_step,
-    pack_state,
-    pad_spec,
-    unpack_state,
-)
+from lbm_jax.cases import get_case
+from lbm_jax.engine.compile import compile_case
+from lbm_jax.engine.step import initial_f, make_step
+
+from backend_parity import assert_sparse_matches_dense
 
 
 def _dense_run(cc, f0, nsteps):
@@ -72,44 +67,13 @@ def test_les_changes_the_answer():
     ("lid_driven_cavity", dict(n=16)),
     ("coronary", dict(shape=(24, 20, 32), radius=4)),
 ])
-def test_les_pallas_matches_dense(case_name, kwargs):
-    spec = pad_spec(dataclasses.replace(
+def test_les_sparse_case_matches_dense(case_name, kwargs):
+    assert_sparse_matches_dense(dataclasses.replace(
         get_case(case_name, **kwargs), smagorinsky_cs=0.17))
-    cc = compile_case(spec)
-    f0 = initial_f(cc)
-    f_ref = _dense_run(cc, f0, 4)
-    step = jax.jit(make_pallas_step(cc, interpret=True))
-    p = pack_state(f0, jnp.asarray(np.asarray(cc.spec.mask)))
-    for t in range(4):
-        p, _ = step(p, jnp.int32(t))
-    f = np.asarray(unpack_state(p))
-    interior = (slice(None), slice(1, -1), slice(1, -1), slice(None))
-    np.testing.assert_allclose(
-        f[interior], f_ref[interior], rtol=3e-6, atol=1e-7
-    )
-
-
-@pytest.mark.slow  # fuse2 interpret traces (see the other feature files)
-def test_les_pallas_fuse2_matches_dense():
-    spec = pad_spec(dataclasses.replace(
-        get_case("lid_driven_cavity", n=16), smagorinsky_cs=0.17),
-        halo=2)
-    cc = compile_case(spec)
-    f0 = initial_f(cc)
-    f_ref = _dense_run(cc, f0, 4)
-    step = jax.jit(make_pallas_step(cc, interpret=True, ring=2, fuse=2))
-    p = pack_state(f0, jnp.asarray(np.asarray(cc.spec.mask)))
-    for t in range(2):
-        p, _ = step(p, jnp.int32(2 * t))
-    f = np.asarray(unpack_state(p))
-    interior = (slice(None), slice(2, -2), slice(2, -2), slice(None))
-    np.testing.assert_allclose(
-        f[interior], f_ref[interior], rtol=3e-6, atol=1e-7
-    )
 
 
 def test_les_sparse_matches_dense():
-    from lbm_tpu.engine.sparse import (
+    from lbm_jax.engine.sparse import (
         compile_sparse,
         initial_f_sparse,
         make_sparse_step,
@@ -167,7 +131,7 @@ def test_les_trt_differs_and_stays_finite():
     backend agrees with the dense one through it)."""
     import dataclasses
 
-    from lbm_tpu.engine.runner import Simulation
+    from lbm_jax.engine.runner import Simulation
 
     spec = get_case("poiseuille", n=16, collision="trt",
                     magic_lambda=0.1875)
@@ -197,8 +161,8 @@ def test_les_trt_buoyancy_composes():
     tau_local_minus) and stays finite through a convective transient."""
     import dataclasses
 
-    from lbm_tpu.cases.thermal import rayleigh_benard
-    from lbm_tpu.engine.thermal import BuoyantTransport
+    from lbm_jax.cases.thermal import rayleigh_benard
+    from lbm_jax.engine.thermal import BuoyantTransport
 
     spec, kwargs, info = rayleigh_benard(nx=16, ny=1, nz=10, ra=3000.0)
     spec = dataclasses.replace(spec, collision="trt",
@@ -241,8 +205,8 @@ def test_les_stabilizes_underresolved_cavity():
 def test_les_laminar_invariance_poiseuille():
     """On the resolved laminar pipe |S| ~ u/R is tiny, so the LES error
     vs the analytic parabola stays within a few percent of BGK's."""
-    from lbm_tpu.cases.poiseuille import analytic_profile
-    from lbm_tpu.engine.runner import Simulation
+    from lbm_jax.cases.poiseuille import analytic_profile
+    from lbm_jax.engine.runner import Simulation
 
     errs = {}
     for cs in (None, 0.17):
@@ -261,25 +225,13 @@ def test_les_laminar_invariance_poiseuille():
 
 
 @pytest.mark.parametrize("feature", ["les", "rheo"])
-def test_closure_trt_pallas_matches_dense(feature):
-    """closure + TRT on the KERNEL (r5): the les branch's constant-
-    Lambda parity split (per-cell even rate tau_eff, odd via
-    closure_tau_minus) — multi-step whole-box agreement with the dense
-    route, incl. the in-kernel NEE lid rows (_row_fix's split)."""
+def test_closure_trt_sparse_matches_dense(feature):
+    """closure + TRT: the constant-Lambda parity split (per-cell even
+    rate tau_eff, odd via closure_tau_minus) — multi-step whole-box
+    agreement of the sparse route with the dense one, incl. the NEE
+    lid rows."""
     kw = ({"smagorinsky_cs": 0.17} if feature == "les" else
           {"rheology": {"model": "power_law", "K": 0.02, "n": 0.7}})
     spec = get_case("lid_driven_cavity", n=16, collision="trt",
                     magic_lambda=0.1875, **kw)
-    cc = compile_case(spec)
-    f_ref = _dense_run(cc, initial_f(cc), 30)
-
-    padded = pad_spec(spec, lane_multiple=1, plane_multiples=(1, 1))
-    ccp = compile_case(padded, light=True)
-    pstep = jax.jit(make_pallas_step(ccp, interpret=True))
-    mask = jnp.asarray(np.asarray(padded.mask))
-    p = pack_state(jnp.pad(initial_f(cc),
-                           ((0, 0), (1, 1), (1, 1), (0, 0))), mask)
-    for t in range(30):
-        p, vs = pstep(p, jnp.int32(t))
-    fp = np.asarray(unpack_state(p))[:, 1:-1, 1:-1, :]
-    np.testing.assert_allclose(fp, f_ref, rtol=3e-5, atol=1e-7)
+    assert_sparse_matches_dense(spec, nsteps=30, rtol=3e-5)

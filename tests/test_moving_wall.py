@@ -10,8 +10,8 @@ Covered:
   * plane Couette flow: the linear profile is an EXACT steady solution
     of LBM + half-way bounce-back, so both BGK and TRT reproduce it to
     fp32 rounding (measured <=2e-5 of U),
-  * cross-backend equivalence (dense / sparse / Pallas incl. fuse=2 and
-    the all-walls-moving z-fixup case),
+  * cross-backend equivalence (dense / sparse, incl. the
+    all-walls-moving z-fixup case),
   * the lid-driven cavity's lid='bounceback' variant converges to the
     same flow as the reference's NEE lid, with the difference shrinking
     ~first-order in resolution (the half-cell lid-position offset);
@@ -26,19 +26,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbm_tpu.cases import get_case
-from lbm_tpu.core.units import UnitSystem
-from lbm_tpu.engine.compile import compile_case
-from lbm_tpu.engine.runner import Simulation
-from lbm_tpu.engine.spec import CaseSpec
-from lbm_tpu.engine.step import initial_f, make_step
-from lbm_tpu.geometry.mask import CellType
-from lbm_tpu.kernels.collide_stream import (
-    make_pallas_step,
-    pack_state,
-    pad_spec,
-    unpack_state,
-)
+from lbm_jax.cases import get_case
+from lbm_jax.core.units import UnitSystem
+from lbm_jax.engine.compile import compile_case
+from lbm_jax.engine.runner import Simulation
+from lbm_jax.engine.spec import CaseSpec
+from lbm_jax.engine.step import initial_f, make_step
+from lbm_jax.geometry.mask import CellType
+
+from backend_parity import assert_sparse_matches_dense
 
 _UNITS = UnitSystem(CH=1e-4, C_U=1.0, C_rho=1000.0)
 
@@ -79,8 +75,7 @@ def test_couette_exact_linear_profile(tau, collision):
 
 
 def _bb_cavity(n=16, **kw):
-    return pad_spec(get_case("lid_driven_cavity", n=n, lid="bounceback",
-                             **kw))
+    return get_case("lid_driven_cavity", n=n, lid="bounceback", **kw)
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -88,66 +83,23 @@ def _bb_cavity(n=16, **kw):
     dict(collision="trt"),
     dict(force=(1e-5, 0.0, 2e-5)),
 ])
-def test_bb_lid_pallas_matches_dense(kwargs):
-    spec = _bb_cavity(**kwargs)
-    cc = compile_case(spec)
-    f0 = initial_f(cc)
-    f_ref = _dense_run(cc, f0, 5)
-    step = jax.jit(make_pallas_step(cc, interpret=True))
-    p = pack_state(f0, jnp.asarray(np.asarray(cc.spec.mask)))
-    for t in range(5):
-        p, _ = step(p, jnp.int32(t))
-    f = np.asarray(unpack_state(p))
-    interior = (slice(None), slice(1, -1), slice(1, -1), slice(None))
-    np.testing.assert_allclose(
-        f[interior], f_ref[interior], rtol=3e-6, atol=1e-7
-    )
-
-
-@pytest.mark.slow  # fuse2 interpret traces dominate the fast suite; BGK fuse2 stays fast via the runner odd-chunk test
-def test_bb_lid_pallas_fuse2_matches_dense():
-    spec = pad_spec(get_case("lid_driven_cavity", n=16, lid="bounceback"),
-                    halo=2)
-    cc = compile_case(spec)
-    f0 = initial_f(cc)
-    f_ref = _dense_run(cc, f0, 4)
-    step = jax.jit(make_pallas_step(cc, interpret=True, ring=2, fuse=2))
-    p = pack_state(f0, jnp.asarray(np.asarray(cc.spec.mask)))
-    for t in range(2):
-        p, _ = step(p, jnp.int32(2 * t))
-    f = np.asarray(unpack_state(p))
-    interior = (slice(None), slice(2, -2), slice(2, -2), slice(None))
-    np.testing.assert_allclose(
-        f[interior], f_ref[interior], rtol=3e-6, atol=1e-7
-    )
+def test_bb_lid_sparse_variant_matches_dense(kwargs):
+    assert_sparse_matches_dense(_bb_cavity(**kwargs), nsteps=5)
 
 
 def test_moving_walls_with_z_fixup_matches_dense():
     """Every WALL of the tiny coronary relabeled MOVING (a translating
-    vessel wall): exercises the Ladd term in the kernel pulls, the NEE
-    row fix, AND the z-plane fixup's _plane_pull_packed in one case."""
+    vessel wall): exercises the Ladd term in the pulls, the NEE plane
+    fixups AND the z-plane outlets in one case, sparse against dense."""
     spec0 = get_case("coronary", shape=(24, 20, 32), radius=4)
     mask = np.where(np.asarray(spec0.mask) == int(CellType.WALL),
                     np.int32(int(CellType.MOVING)), spec0.mask)
-    spec = pad_spec(dataclasses.replace(
+    assert_sparse_matches_dense(dataclasses.replace(
         spec0, mask=mask, wall_velocity=(1e-3, 0.0, 0.0)))
-    cc = compile_case(spec)
-    f0 = initial_f(cc)
-    f_ref = _dense_run(cc, f0, 4)
-    step = jax.jit(make_pallas_step(cc, interpret=True))
-    p = pack_state(f0, jnp.asarray(np.asarray(cc.spec.mask)))
-    for t in range(4):
-        p, _ = step(p, jnp.int32(t))
-    f = np.asarray(unpack_state(p))
-    interior = (slice(None), slice(1, -1), slice(1, -1), slice(None))
-    assert np.isfinite(f[interior]).all()
-    np.testing.assert_allclose(
-        f[interior], f_ref[interior], rtol=3e-6, atol=1e-7
-    )
 
 
 def test_bb_lid_sparse_matches_dense():
-    from lbm_tpu.engine.sparse import (
+    from lbm_jax.engine.sparse import (
         compile_sparse,
         initial_f_sparse,
         make_sparse_step,

@@ -10,9 +10,8 @@ testable exactly:
   * even/odd parity rates      -> TRT (asserted),
   * shear rows at 1/tau        -> same viscosity as BGK (Poiseuille
                                   error 0.1141 vs BGK 0.1150 at n=24),
-and the dense collide is ONE 19x19 tensordot (MXU on TPU); the Pallas
-kernel uses the equivalent rank-structured form (core/mrt
-.mrt_rank_update), cross-checked here on every kernel path.
+and the collide is ONE 19x19 tensordot at HIGHEST precision,
+cross-checked here on the dense and sparse paths.
 """
 
 import dataclasses
@@ -22,16 +21,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbm_tpu.cases import get_case
-from lbm_tpu.core.mrt import CLASSES, mrt_basis, mrt_matrices
-from lbm_tpu.engine.compile import compile_case
-from lbm_tpu.engine.step import initial_f, make_step
-from lbm_tpu.kernels.collide_stream import (
-    make_pallas_step,
-    pack_state,
-    pad_spec,
-    unpack_state,
-)
+from lbm_jax.cases import get_case
+from lbm_jax.core.mrt import CLASSES, mrt_basis, mrt_matrices
+from lbm_jax.engine.compile import compile_case
+from lbm_jax.engine.step import initial_f, make_step
+
+from backend_parity import assert_sparse_matches_dense
 
 
 def _dense_run(cc, f0, nsteps):
@@ -42,16 +37,8 @@ def _dense_run(cc, f0, nsteps):
     return np.asarray(f)
 
 
-def _pallas_run(cc, f0, nsteps, per_call=1, **kw):
-    step = jax.jit(make_pallas_step(cc, interpret=True, **kw))
-    p = pack_state(f0, jnp.asarray(np.asarray(cc.spec.mask)))
-    for t in range(nsteps // per_call):
-        p, _ = step(p, jnp.int32(per_call * t))
-    return np.asarray(unpack_state(p))
-
-
 def test_basis_orthogonal_with_definite_parity():
-    from lbm_tpu.core.lattice import D3Q19
+    from lbm_jax.core.lattice import D3Q19
 
     m, d = mrt_basis()
     g = m @ m.T
@@ -70,7 +57,7 @@ def test_matrix_degeneracies():
     """All-equal rates give s(I - P_cons); parity rates give the TRT
     projector combination — both to f64 exactness."""
     m, d = mrt_basis()
-    from lbm_tpu.core.lattice import D3Q19
+    from lbm_jax.core.lattice import D3Q19
 
     opp = D3Q19.OPP
     tau = 0.7
@@ -112,35 +99,13 @@ def test_mrt_parity_rates_match_trt():
     ("lid_driven_cavity", dict(n=16)),
     ("coronary", dict(shape=(24, 20, 32), radius=4)),
 ])
-def test_mrt_pallas_matches_dense(case_name, kwargs):
-    spec = pad_spec(dataclasses.replace(
+def test_mrt_sparse_case_matches_dense(case_name, kwargs):
+    assert_sparse_matches_dense(dataclasses.replace(
         get_case(case_name, **kwargs), collision="mrt"))
-    cc = compile_case(spec)
-    f0 = initial_f(cc)
-    f_ref = _dense_run(cc, f0, 4)
-    f = _pallas_run(cc, f0, 4)
-    interior = (slice(None), slice(1, -1), slice(1, -1), slice(None))
-    np.testing.assert_allclose(
-        f[interior], f_ref[interior], rtol=3e-6, atol=1e-7
-    )
-
-
-@pytest.mark.slow  # fuse2 interpret traces dominate the fast suite; BGK fuse2 stays fast via the runner odd-chunk test
-def test_mrt_pallas_fuse2_matches_dense():
-    spec = pad_spec(dataclasses.replace(
-        get_case("lid_driven_cavity", n=16), collision="mrt"), halo=2)
-    cc = compile_case(spec)
-    f0 = initial_f(cc)
-    f_ref = _dense_run(cc, f0, 4)
-    f = _pallas_run(cc, f0, 4, per_call=2, ring=2, fuse=2)
-    interior = (slice(None), slice(2, -2), slice(2, -2), slice(None))
-    np.testing.assert_allclose(
-        f[interior], f_ref[interior], rtol=3e-6, atol=1e-7
-    )
 
 
 def test_mrt_sparse_matches_dense():
-    from lbm_tpu.engine.sparse import (
+    from lbm_jax.engine.sparse import (
         compile_sparse,
         initial_f_sparse,
         make_sparse_step,
@@ -165,8 +130,8 @@ def test_mrt_sparse_matches_dense():
 
 def test_mrt_with_force_dense_vs_sparse():
     """MRT + Guo force composes via the moment-space prefactor KF on
-    the matmul backends (the kernel refuses the combination)."""
-    from lbm_tpu.engine.sparse import (
+    both backends."""
+    from lbm_jax.engine.sparse import (
         compile_sparse,
         initial_f_sparse,
         make_sparse_step,
@@ -190,13 +155,18 @@ def test_mrt_with_force_dense_vs_sparse():
     )
 
 
-def test_mrt_kernel_rejects_force():
-    spec = pad_spec(dataclasses.replace(
+def test_mrt_force_auto_backend_runs_dense():
+    """backend='auto' takes MRT + force on the dense step, with no
+    fallback path in between."""
+    from lbm_jax.engine.runner import Simulation
+
+    spec = dataclasses.replace(
         get_case("lid_driven_cavity", n=16), collision="mrt",
-        force=(0.0, 0.0, 1e-5)))
-    cc = compile_case(spec)
-    with pytest.raises(ValueError, match="MRT"):
-        make_pallas_step(cc, interpret=True)
+        force=(0.0, 0.0, 1e-5))
+    sim = Simulation(spec)
+    assert sim.backend == "xla"
+    sim.run(max_steps=4, time_save=4, verbose=False)
+    assert np.isfinite(np.asarray(sim.f)).all()
 
 
 def test_mrt_mass_conservation_closed_box():
@@ -217,8 +187,8 @@ def test_mrt_viscosity_matches_bgk_on_poiseuille():
     """Shear rows relax at 1/tau, so the converged parabola carries the
     same viscosity (and the same discretization error) as BGK:
     measured rel L2 0.1141 (MRT) vs 0.1150 (BGK) at n=24."""
-    from lbm_tpu.cases.poiseuille import analytic_profile
-    from lbm_tpu.engine.runner import Simulation
+    from lbm_jax.cases.poiseuille import analytic_profile
+    from lbm_jax.engine.runner import Simulation
 
     errs = {}
     for coll in ("bgk", "mrt"):

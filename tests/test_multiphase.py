@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbm_tpu.core.units import UnitSystem
-from lbm_tpu.engine.multiphase import ShanChen, eos_pressure
-from lbm_tpu.engine.spec import CaseSpec
-from lbm_tpu.geometry.mask import CellType
+from lbm_jax.core.units import UnitSystem
+from lbm_jax.engine.multiphase import ShanChen, eos_pressure
+from lbm_jax.engine.spec import CaseSpec
+from lbm_jax.geometry.mask import CellType
 
 _UNITS = UnitSystem(CH=1.0, C_U=1.0, C_rho=1.0)
 

@@ -1,11 +1,11 @@
 """Native geometry runtime tests: adjacency, smoothing, STL voxelization,
-plane fitting — the TPU-era equivalents of the reference's MATLAB/C MEX
+plane fitting — the in-repo equivalents of the reference's MATLAB/C MEX
 pipeline (SURVEY.md 2.2-2.3) plus the never-shipped geo_preprocess."""
 
 import numpy as np
 import pytest
 
-from lbm_tpu.geometry.native import (
+from lbm_jax.geometry.native import (
     fit_plane_normal,
     have_native,
     load_stl,
@@ -88,7 +88,7 @@ def test_smoothing_native_matches_numpy():
     noisy = verts + 0.03 * rng.standard_normal(verts.shape)
     if not have_native():
         pytest.skip("native lib unavailable")
-    import lbm_tpu.geometry.native as nat
+    import lbm_jax.geometry.native as nat
 
     a = smooth_mesh(noisy, faces, iterations=3, mode="inversedistance")
     lib, nat._LIB, nat._LIB_TRIED = nat._LIB, None, True
@@ -138,7 +138,7 @@ def test_fit_plane_normal():
 def test_geo_preprocess_pipeline(reference_root, tmp_path):
     """End-to-end STL -> labeled mask (the capability the reference
     describes in README item E but never ships)."""
-    from lbm_tpu.geometry.preprocess import label_occupancy, stl_to_occupancy
+    from lbm_jax.geometry.preprocess import label_occupancy, stl_to_occupancy
 
     flag = stl_to_occupancy(
         f"{reference_root}/bifurcation/bif.stl", (64, 83, 32)
@@ -160,10 +160,10 @@ def test_geo_preprocess_registered_matches_shipped(reference_root):
     L0->L7 closure at the geometry level (r4: converged midplane
     fields then agree to l2_rel 6.4%, corr 0.997;
     tools/l0l7_bifurcation.py)."""
-    from lbm_tpu.cases.bifurcation import build_labels
-    from lbm_tpu.geometry.io import load_geo
-    from lbm_tpu.geometry.mask import CellType
-    from lbm_tpu.geometry.preprocess import (
+    from lbm_jax.cases.bifurcation import build_labels
+    from lbm_jax.geometry.io import load_geo
+    from lbm_jax.geometry.mask import CellType
+    from lbm_jax.geometry.preprocess import (
         extrude_open_ends,
         stl_to_occupancy,
     )

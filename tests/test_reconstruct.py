@@ -4,8 +4,8 @@ shape for volumetric samples."""
 
 import numpy as np
 
-from lbm_tpu.geometry.native import voxelize_mesh
-from lbm_tpu.geometry.reconstruct import (
+from lbm_jax.geometry.native import voxelize_mesh
+from lbm_jax.geometry.reconstruct import (
     alpha_shape_surface,
     cloud_to_occupancy,
     median_spacing,
@@ -93,7 +93,7 @@ def test_median_spacing():
 def test_reconstruct_mycrustopen_demo_cloud(reference_root):
     """End-to-end on a real MyCrustOpen demo cloud (Foot.mat, 10k points,
     the reference's own test data: TestMyCrustOpen.m)."""
-    from lbm_tpu.geometry.reconstruct import load_point_cloud_mat
+    from lbm_jax.geometry.reconstruct import load_point_cloud_mat
 
     pts = load_point_cloud_mat(f"{reference_root}/MyCrustOpen/Foot.mat")
     assert pts.shape == (10010, 3)
@@ -121,7 +121,7 @@ def test_ball_pivot_closed_sphere_is_watertight():
     """BPA on a uniform sphere sampling: the exact closed-manifold
     invariants — 2V-4 faces, zero boundary edges, Euler characteristic
     2, every undirected edge in exactly two triangles."""
-    from lbm_tpu.geometry.reconstruct import ball_pivot_surface
+    from lbm_jax.geometry.reconstruct import ball_pivot_surface
 
     n = 1600
     i = np.arange(n)
@@ -142,7 +142,7 @@ def test_ball_pivot_open_shell():
     """The capability the volumetric route lacks (VERDICT r1: MyCrustOpen
     partial): a thin OPEN hemisphere shell has no interior to fill —
     BPA triangulates it directly, boundary edges only on the rim."""
-    from lbm_tpu.geometry.reconstruct import ball_pivot_surface
+    from lbm_jax.geometry.reconstruct import ball_pivot_surface
 
     n = 1600
     i = np.arange(n)
@@ -169,7 +169,7 @@ def test_ball_pivot_mycrustopen_demo_cloud(reference_root):
     """BPA on the reference's own open-shell demo (Hypersheet.mat — an
     open sheet, the MyCrustOpen showcase TestMyCrustOpen.m case the
     volumetric route cannot represent)."""
-    from lbm_tpu.geometry.reconstruct import (
+    from lbm_jax.geometry.reconstruct import (
         ball_pivot_surface,
         load_point_cloud_mat,
     )

@@ -30,9 +30,9 @@ import jax
 import numpy as np
 import pytest
 
-from lbm_tpu.cases import get_case
-from lbm_tpu.engine.compile import compile_case
-from lbm_tpu.engine.step import (
+from lbm_jax.cases import get_case
+from lbm_jax.engine.compile import compile_case
+from lbm_jax.engine.step import (
     initial_f,
     macro_fields,
     make_first_step,

@@ -8,7 +8,7 @@ and day-one semantic bugs (VERDICT r1 "what's weak" #6). Regenerate with:
     python -c "
     import numpy as np, sys; sys.path.insert(0,'tests')
     from reference_oracle import oracle_from_spec
-    from lbm_tpu.cases import get_case
+    from lbm_jax.cases import get_case
     o = oracle_from_spec(get_case('lid_driven_cavity', n=16),
                          ldc_mode=True).run(100)
     np.savez_compressed('tests/data/golden_lid16_100.npz',
@@ -26,9 +26,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from lbm_tpu.cases import get_case
-from lbm_tpu.engine.compile import compile_case
-from lbm_tpu.engine.step import initial_f, macro_fields, make_step
+from lbm_jax.cases import get_case
+from lbm_jax.engine.compile import compile_case
+from lbm_jax.engine.step import initial_f, macro_fields, make_step
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "data",
                       "golden_lid16_100.npz")

@@ -21,11 +21,9 @@ Covered:
         u(x) = n/(n+1) (F/K)^(1/n) [c^((n+1)/n) - |x-c|^((n+1)/n)]
     — this runs force + closure together, so it also validates the
     variable-rate Guo prefactor (1 - 1/(2 tau_eff)),
-  * cross-backend equivalence (dense / sparse / Pallas kernel; the
-    sharded paths gain carreau rows in test_parallel.py and
-    test_pallas_sharded.py),
-  * backend='auto' falls back to xla for closure + force (the kernel
-    refuses the combination).
+  * cross-backend equivalence (dense / sparse; the sharded paths gain
+    carreau rows in test_parallel.py),
+  * backend='auto' runs closure + force on the dense step.
 """
 
 import dataclasses
@@ -35,23 +33,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbm_tpu.cases import get_case
-from lbm_tpu.core.rheology import (
+from lbm_jax.cases import get_case
+from lbm_jax.core.rheology import (
     normalize_closure,
     nu_of_gamma,
     tau_eff_from_p,
 )
-from lbm_tpu.core.units import UnitSystem
-from lbm_tpu.engine.compile import compile_case
-from lbm_tpu.engine.spec import CaseSpec
-from lbm_tpu.engine.step import initial_f, make_step
-from lbm_tpu.geometry.mask import CellType
-from lbm_tpu.kernels.collide_stream import (
-    make_pallas_step,
-    pack_state,
-    pad_spec,
-    unpack_state,
-)
+from lbm_jax.core.units import UnitSystem
+from lbm_jax.engine.compile import compile_case
+from lbm_jax.engine.spec import CaseSpec
+from lbm_jax.engine.step import initial_f, make_step
+from lbm_jax.geometry.mask import CellType
+
+from backend_parity import assert_sparse_matches_dense
 
 _UNITS = UnitSystem(CH=1e-4, C_U=1.0, C_rho=1000.0)
 
@@ -203,44 +197,13 @@ def test_power_law_channel_profile():
     ("lid_driven_cavity", dict(n=16)),
     ("coronary", dict(shape=(24, 20, 32), radius=4)),
 ])
-def test_rheology_pallas_matches_dense(case_name, kwargs):
-    spec = pad_spec(dataclasses.replace(
+def test_rheology_sparse_case_matches_dense(case_name, kwargs):
+    assert_sparse_matches_dense(dataclasses.replace(
         get_case(case_name, **kwargs), rheology=dict(CARREAU)))
-    cc = compile_case(spec)
-    f0 = initial_f(cc)
-    f_ref = _dense_run(cc, f0, 4)
-    step = jax.jit(make_pallas_step(cc, interpret=True))
-    p = pack_state(f0, jnp.asarray(np.asarray(cc.spec.mask)))
-    for t in range(4):
-        p, _ = step(p, jnp.int32(t))
-    f = np.asarray(unpack_state(p))
-    interior = (slice(None), slice(1, -1), slice(1, -1), slice(None))
-    np.testing.assert_allclose(
-        f[interior], f_ref[interior], rtol=3e-6, atol=1e-7
-    )
-
-
-@pytest.mark.slow  # fuse2 interpret traces (see the other feature files)
-def test_rheology_pallas_fuse2_matches_dense():
-    spec = pad_spec(dataclasses.replace(
-        get_case("lid_driven_cavity", n=16), rheology=dict(CARREAU)),
-        halo=2)
-    cc = compile_case(spec)
-    f0 = initial_f(cc)
-    f_ref = _dense_run(cc, f0, 4)
-    step = jax.jit(make_pallas_step(cc, interpret=True, ring=2, fuse=2))
-    p = pack_state(f0, jnp.asarray(np.asarray(cc.spec.mask)))
-    for t in range(2):
-        p, _ = step(p, jnp.int32(2 * t))
-    f = np.asarray(unpack_state(p))
-    interior = (slice(None), slice(2, -2), slice(2, -2), slice(None))
-    np.testing.assert_allclose(
-        f[interior], f_ref[interior], rtol=3e-6, atol=1e-7
-    )
 
 
 def test_rheology_sparse_matches_dense():
-    from lbm_tpu.engine.sparse import (
+    from lbm_jax.engine.sparse import (
         compile_sparse,
         initial_f_sparse,
         make_sparse_step,
@@ -263,15 +226,12 @@ def test_rheology_sparse_matches_dense():
     )
 
 
-def test_kernel_refuses_closure_plus_force_and_auto_falls_back():
-    from lbm_tpu.engine.runner import Simulation
+def test_closure_plus_force_auto_backend_runs_dense():
+    from lbm_jax.engine.runner import Simulation
 
     spec = get_case("gravity_channel", n=16, nz=16, fz=1e-5,
                     rheology={"model": "power_law", "K": 0.05,
                               "n": 0.7}, max_steps=50, time_save=50)
-    cc = compile_case(pad_spec(spec))
-    with pytest.raises(ValueError):
-        make_pallas_step(cc)
     sim = Simulation(spec)  # backend='auto'
     assert sim.backend == "xla"
     sim.run(verbose=False)
@@ -288,7 +248,7 @@ def test_carreau_blood_constructor():
     conversion values, and the resulting tau_eff band is physiological
     (0.56..1.48 over the resolved shear-rate decades — the transition
     lands in-band, so the correction is active, not decorative)."""
-    from lbm_tpu.core.rheology import carreau_blood
+    from lbm_jax.core.rheology import carreau_blood
 
     u = UnitSystem(CH=0.0000655737, C_U=2.4705, C_rho=1060.0)
     d = carreau_blood(u)
@@ -309,7 +269,7 @@ def test_coronary_runs_on_blood_rheology():
     """The flagship composition: the coronary tree case under the
     physiological Carreau model (in ITS OWN unit system) runs finite
     and measurably non-Newtonian."""
-    from lbm_tpu.core.rheology import carreau_blood
+    from lbm_jax.core.rheology import carreau_blood
 
     spec_n = get_case("coronary", shape=(24, 20, 32), radius=4)
     spec_b = get_case("coronary", shape=(24, 20, 32), radius=4,

@@ -6,16 +6,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbm_tpu.cases import get_case
-from lbm_tpu.engine.compile import compile_case
-from lbm_tpu.engine.sparse import (
+from lbm_jax.cases import get_case
+from lbm_jax.engine.compile import compile_case
+from lbm_jax.engine.sparse import (
     compile_sparse,
     initial_f_sparse,
     macro_fields_sparse,
     make_sparse_step,
     scatter_dense,
 )
-from lbm_tpu.engine.step import initial_f, make_step
+from lbm_jax.engine.step import initial_f, make_step
 
 
 def _dense_run(spec, nsteps):
@@ -28,7 +28,7 @@ def _dense_run(spec, nsteps):
 
 
 def _sparse_run(spec, nsteps):
-    sc = compile_sparse(spec, lane_multiple=256)
+    sc = compile_sparse(spec)
     step = jax.jit(make_sparse_step(sc))
     f = initial_f_sparse(sc)
     for t in range(nsteps):
@@ -62,14 +62,14 @@ def test_sparse_memory_savings_on_tree():
     n_total = int(np.prod(spec.shape))
     occupancy = sc.n_live / n_total
     assert occupancy < 0.35
-    sparse_bytes = sc.n_pad * (19 * 4 + 19 * 4 + 19 * 1)  # f + idx + masks
+    sparse_bytes = sc.n_live * (19 * 4 + 19 * 4 + 19 * 1)  # f + idx + masks
     dense_bytes = n_total * (19 * 4 + 19 * 1 + 1)
     assert sparse_bytes < dense_bytes
 
 
 def test_sparse_macro_and_velsum():
     spec = get_case("lid_driven_cavity", n=16)
-    sc = compile_sparse(spec, lane_multiple=256)
+    sc = compile_sparse(spec)
     step = jax.jit(make_sparse_step(sc))
     f = initial_f_sparse(sc)
     for t in range(5):
@@ -78,7 +78,7 @@ def test_sparse_macro_and_velsum():
     assert np.isfinite(np.asarray(u_m)).all()
     # Dense comparison of the persistent macro fields.
     cc, f_dense = _dense_run(spec, 5)
-    from lbm_tpu.engine.step import macro_fields
+    from lbm_jax.engine.step import macro_fields
 
     rho_d, u_d = macro_fields(cc, jnp.asarray(f_dense))
     u_scattered = np.asarray(scatter_dense(sc, u_m))
@@ -97,8 +97,8 @@ def test_sparse_with_mesh_raises():
     import pytest
     from jax.sharding import Mesh
 
-    from lbm_tpu.cases import get_case
-    from lbm_tpu.engine.runner import Simulation
+    from lbm_jax.cases import get_case
+    from lbm_jax.engine.runner import Simulation
 
     mesh = Mesh(np.asarray(jax.devices()[:2]), axis_names=("d",))
     with pytest.raises(ValueError, match="single-device"):

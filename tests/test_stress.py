@@ -18,7 +18,7 @@ Anchors, all against exact momentum-balance solutions:
   * WSS = tangential traction magnitude at the near-wall cell center
     (half a cell off the wall plane: F (c - 1/2) in the channel),
   * voxel wall normals (flat plane / edge cells),
-  * backend equivalence of Simulation.wss() (xla vs pallas vs sparse).
+  * backend equivalence of Simulation.wss() (xla vs sparse vs GSPMD).
 """
 
 import jax
@@ -26,13 +26,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbm_tpu.cases import get_case
-from lbm_tpu.core.units import UnitSystem
-from lbm_tpu.engine.compile import compile_case
-from lbm_tpu.engine.spec import CaseSpec, PlaneBC
-from lbm_tpu.engine.step import initial_f, make_step
-from lbm_tpu.engine.stress import stress_fields, wall_normals, wss_field
-from lbm_tpu.geometry.mask import CellType
+from lbm_jax.cases import get_case
+from lbm_jax.core.units import UnitSystem
+from lbm_jax.engine.compile import compile_case
+from lbm_jax.engine.spec import CaseSpec, PlaneBC
+from lbm_jax.engine.step import initial_f, make_step
+from lbm_jax.engine.stress import stress_fields, wall_normals, wss_field
+from lbm_jax.geometry.mask import CellType
 
 _UNITS = UnitSystem(CH=1e-4, C_U=1.0, C_rho=1000.0)
 
@@ -146,13 +146,15 @@ def test_wall_normals_flat_and_edge():
     assert np.allclose(mag[mag > 0], 1.0, atol=1e-6)
 
 
-@pytest.mark.parametrize("backend", ["pallas", "sparse"])
+@pytest.mark.parametrize("backend", ["sparse", "gspmd"])
 def test_sim_wss_backend_equivalence(backend):
-    from lbm_tpu.engine.runner import Simulation
+    from lbm_jax.engine.runner import Simulation
+    from lbm_jax.parallel.mesh import lattice_mesh
 
     spec = get_case("poiseuille", n=16)
     ref = Simulation(spec, backend="xla")
-    other = Simulation(spec, backend=backend)
+    other = (Simulation(spec, backend="xla", mesh=lattice_mesh())
+             if backend == "gspmd" else Simulation(spec, backend=backend))
     for s in (ref, other):
         s.run(max_steps=20, time_save=20, verbose=False)
     w_ref = np.asarray(ref.wss())
@@ -162,8 +164,8 @@ def test_sim_wss_backend_equivalence(backend):
 
 
 def test_vtk_includes_wss(tmp_path):
-    from lbm_tpu.engine.runner import Simulation
-    from lbm_tpu.io.vtk import case_vtk
+    from lbm_jax.engine.runner import Simulation
+    from lbm_jax.io.vtk import case_vtk
 
     sim = Simulation(get_case("lid_driven_cavity", n=16), backend="xla")
     sim.run(max_steps=20, time_save=20, verbose=False)
@@ -179,7 +181,7 @@ def test_vtk_includes_wss(tmp_path):
 def test_osi_zero_on_steady_flow():
     """Unidirectional traction: OSI = 0 identically, TAWSS = the
     instantaneous WSS."""
-    from lbm_tpu.engine.stress import WSSAccumulator
+    from lbm_jax.engine.stress import WSSAccumulator
 
     spec = _channel_spec()
     cc = compile_case(spec)
@@ -204,8 +206,8 @@ def test_osi_half_on_reversing_flow():
     """A zero-mean oscillatory pipe (series-driven at both ends): the
     traction reverses each half-period, so OSI -> 1/2 at the wall
     while a steady-component control stays low."""
-    from lbm_tpu.engine.stress import WSSAccumulator
-    from lbm_tpu.geometry.shapes import pipe_mask
+    from lbm_jax.engine.stress import WSSAccumulator
+    from lbm_jax.geometry.shapes import pipe_mask
 
     nxz, ny = 16, 24
     tau, period, amp = 0.8, 400, 0.02
@@ -259,23 +261,24 @@ def test_osi_half_on_reversing_flow():
     )
 
 
-def test_wss_sparse_route_matches_dense_on_pallas():
-    """The 512^3 WSS route (Simulation._sparse_cc_f: live-cell pdfs
-    gathered straight from the packed pallas state -> compacted stress)
-    must agree with the dense pull on a shape where both fit. Uses the
-    coronary tree so tile-skip and BC fixups are active."""
-    from lbm_tpu.engine.runner import Simulation
-    from lbm_tpu.engine.sparse import scatter_dense
-    from lbm_tpu.engine.stress import (
+def test_wss_sparse_route_matches_dense():
+    """The O(live-cell) WSS route (Simulation._sparse_cc_f ->
+    compacted stress) agrees with the dense pull of the same state on
+    the coronary tree, where the BC fixups are active."""
+    from lbm_jax.engine.runner import Simulation
+    from lbm_jax.engine.sparse import scatter_dense
+    from lbm_jax.engine.stress import (
         compact_normals,
+        wss_field,
         wss_sparse,
     )
 
     spec = get_case("coronary", shape=(48, 24, 40), radius=5)
-    sim = Simulation(spec, backend="pallas")
+    sim = Simulation(spec, backend="sparse")
     sim.run(max_steps=10, time_save=10, verbose=False)
-    assert not sim._wss_via_sparse()  # small: wss() itself goes dense
-    w_dense = np.asarray(sim.wss())
+    cc, f = sim._dense_cc_f()
+    w_dense = np.asarray(wss_field(
+        cc, f, sim.t, wall_normals(spec.mask, spec.wall_sdf)))
     sc, f_s = sim._sparse_cc_f()
     normals = compact_normals(
         sc, wall_normals(spec.mask, spec.wall_sdf))
@@ -289,9 +292,9 @@ def test_stress_sparse_matches_dense_force_closure():
     """stress_fields_sparse carries the Guo force correction and the
     per-cell closure tau_eff exactly like the dense path (the power-law
     channel spans tau_eff ~0.6-20 across the gap)."""
-    from lbm_tpu.engine.sparse import compile_sparse, scatter_dense
-    from lbm_tpu.engine.runner import Simulation
-    from lbm_tpu.engine.stress import stress_fields_sparse
+    from lbm_jax.engine.sparse import compile_sparse, scatter_dense
+    from lbm_jax.engine.runner import Simulation
+    from lbm_jax.engine.stress import stress_fields_sparse
 
     spec = _channel_spec(rheology={"model": "power_law", "K": 0.01,
                                    "n": 0.7})
@@ -312,13 +315,13 @@ def test_sparse_wss_accumulator_matches_dense():
     """SparseWSSAccumulator (the 512^3 TAWSS/OSI route) must agree with
     the dense accumulator sample-for-sample; the *_field accessors
     erase the layout difference."""
-    from lbm_tpu.engine.runner import Simulation
-    from lbm_tpu.engine.stress import WSSAccumulator
+    from lbm_jax.engine.runner import Simulation
+    from lbm_jax.engine.stress import WSSAccumulator
 
     spec = get_case("poiseuille", n=16)
     sim = Simulation(spec, backend="sparse")
     acc_s = sim.wss_accumulator()
-    from lbm_tpu.engine.stress import SparseWSSAccumulator
+    from lbm_jax.engine.stress import SparseWSSAccumulator
 
     assert isinstance(acc_s, SparseWSSAccumulator)
     cc = compile_case(spec)

@@ -6,12 +6,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from lbm_tpu.core.units import UnitSystem
-from lbm_tpu.engine.compile import compile_case
-from lbm_tpu.engine.spec import CaseSpec, PlaneBC
-from lbm_tpu.engine.step import initial_f, make_step
-from lbm_tpu.geometry.mask import CellType
-from lbm_tpu.geometry.shapes import cavity_mask
+from lbm_jax.core.units import UnitSystem
+from lbm_jax.engine.compile import compile_case
+from lbm_jax.engine.spec import CaseSpec, PlaneBC
+from lbm_jax.engine.step import initial_f, make_step
+from lbm_jax.geometry.mask import CellType
+from lbm_jax.geometry.shapes import cavity_mask
 
 
 def _run_cavity(n, lid_axis, flow_axis, nsteps):

@@ -24,12 +24,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbm_tpu.cases.thermal import heated_cavity, rayleigh_benard
-from lbm_tpu.core.units import UnitSystem
-from lbm_tpu.engine.scalar import ScalarTransport
-from lbm_tpu.engine.spec import CaseSpec
-from lbm_tpu.engine.thermal import BuoyantTransport
-from lbm_tpu.geometry.mask import CellType
+from lbm_jax.cases.thermal import heated_cavity, rayleigh_benard
+from lbm_jax.core.units import UnitSystem
+from lbm_jax.engine.scalar import ScalarTransport
+from lbm_jax.engine.spec import CaseSpec
+from lbm_jax.engine.thermal import BuoyantTransport
+from lbm_jax.geometry.mask import CellType
 
 
 def _closed_box(n: int, tau: float = 0.8,
@@ -65,8 +65,8 @@ def test_uniform_c_buoyancy_matches_constant_force():
     closed adiabatic box keeps it uniform up to O(div u) rounding).
     Validates the per-cell force-field branches of half_force_shift /
     guo_source against the measured constant machinery."""
-    from lbm_tpu.engine.compile import compile_case
-    from lbm_tpu.engine.step import initial_f, make_step
+    from lbm_jax.engine.compile import compile_case
+    from lbm_jax.engine.step import initial_f, make_step
 
     b = (2e-6, 0.0, 5e-6)
     n_steps = 12
@@ -165,7 +165,7 @@ def test_gspmd_sharded_thermal_matches_single_device():
     one-deep halo CollectivePermutes, the energy sum a psum."""
     import jax
 
-    from lbm_tpu.parallel.mesh import lattice_mesh
+    from lbm_jax.parallel.mesh import lattice_mesh
 
     assert len(jax.devices()) == 8, "conftest must provide 8 CPU devices"
     n_steps = 48   # info crosses several 4-wide shards of the nx=32 slab
@@ -236,3 +236,47 @@ def test_absorbing_wall_drains_box():
     t0 = st2.total()
     st2.run(300)
     assert abs(st2.total() - t0) < 1e-3 * abs(t0)
+
+
+def test_rayleigh_benard_3d_conduction_profile_exact():
+    """The walled 3D box (isothermal plates, rigid adiabatic side
+    walls) with no buoyancy: the steady field is the exact linear
+    conduction profile between the half-way plate positions, in every
+    column, and the flow never moves."""
+    from lbm_jax.cases.thermal import rayleigh_benard_3d
+
+    spec, kw, info = rayleigh_benard_3d(nx=6, ny=6, nz=14, ra=0.0,
+                                        perturb=0.0)
+    bt = BuoyantTransport(spec, **kw)
+    bt.run(3000)
+    c = np.asarray(bt.concentration())[1:-1, 1:-1, 1:-1]
+    z = np.arange(1, 13, dtype=np.float64)
+    lin = 0.5 - (z - 0.5) / info["H"]
+    assert np.abs(c - lin[None, None, :]).max() < 1e-5
+    _, u = bt.macro()
+    assert float(jnp.abs(u).max()) == 0.0
+
+
+def test_heated_cavity_3d_conduction_limit():
+    """The differentially heated cube at Ra -> 0: conduction only, so
+    the hot-wall Nusselt number is 1 on every plane."""
+    from lbm_jax.cases.thermal import heated_cavity_3d
+
+    spec, kw, info = heated_cavity_3d(n=10, ra=1e-3)
+    bt = BuoyantTransport(spec, **kw)
+    bt.run(2000)
+    _, nu = bt.nusselt_profile(0, info["kappa"], info["dT"], info["H"])
+    np.testing.assert_allclose(nu, 1.0, atol=2e-3)
+
+
+def test_rayleigh_benard_3d_below_onset_stays_still():
+    """Ra = 800 < 1708 in the walled box: no convective growth — the
+    kinetic energy stays at its discrete-hydrostatic floor (the
+    criterion of test_rayleigh_benard_onset)."""
+    from lbm_jax.cases.thermal import rayleigh_benard_3d
+
+    spec, kw, _ = rayleigh_benard_3d(nx=12, ny=12, nz=10, ra=800.0)
+    bt = BuoyantTransport(spec, **kw)
+    e = bt.run(1500, record_energy=True)
+    assert np.isfinite(e).all()
+    assert e[-1] <= e[200] * 1.05

@@ -9,8 +9,8 @@ from the magic parameter Lambda (see engine/spec.py).
 Covered here:
   * tau_minus derivation and the BGK-degenerate limit
     (Lambda = (tau-1/2)^2  =>  tau_minus = tau  =>  TRT == BGK),
-  * cross-backend equivalence (dense / sparse / Pallas interpret,
-    including the fuse=2 kernel and the z-plane-fixup path),
+  * cross-backend equivalence (dense / sparse, including the z-plane
+    fixup and the series inlet),
   * exact mass conservation on a closed box,
   * the magic-Lambda property itself: on a pressure-driven plane
     channel with half-way bounce-back walls, Lambda = 3/16 places the
@@ -27,19 +27,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbm_tpu.cases import get_case
-from lbm_tpu.core.units import UnitSystem
-from lbm_tpu.engine.compile import compile_case, tau_minus_of
-from lbm_tpu.engine.runner import Simulation
-from lbm_tpu.engine.spec import CaseSpec, PlaneBC
-from lbm_tpu.engine.step import initial_f, make_step
-from lbm_tpu.geometry.mask import CellType
-from lbm_tpu.kernels.collide_stream import (
-    make_pallas_step,
-    pack_state,
-    pad_spec,
-    unpack_state,
-)
+from lbm_jax.cases import get_case
+from lbm_jax.core.units import UnitSystem
+from lbm_jax.engine.compile import compile_case, tau_minus_of
+from lbm_jax.engine.runner import Simulation
+from lbm_jax.engine.spec import CaseSpec, PlaneBC
+from lbm_jax.engine.step import initial_f, make_step
+from lbm_jax.geometry.mask import CellType
+
+from backend_parity import assert_sparse_matches_dense
 
 
 def _dense_run(cc, f0, nsteps):
@@ -91,61 +87,21 @@ def test_trt_changes_the_answer():
     ("lid_driven_cavity", dict(n=16)),
     ("poiseuille", dict(n=16)),
 ])
-def test_trt_pallas_matches_dense(case_name, kwargs):
-    spec = pad_spec(get_case(case_name, collision="trt", **kwargs))
-    cc = compile_case(spec)
-    f0 = initial_f(cc)
-    f_ref = _dense_run(cc, f0, 4)
-    step = jax.jit(make_pallas_step(cc, interpret=True))
-    p = pack_state(f0, jnp.asarray(np.asarray(cc.spec.mask)))
-    for t in range(4):
-        p, _ = step(p, jnp.int32(t))
-    f = np.asarray(unpack_state(p))
-    interior = (slice(None), slice(1, -1), slice(1, -1), slice(None))
-    np.testing.assert_allclose(
-        f[interior], f_ref[interior], rtol=3e-6, atol=1e-7
-    )
+def test_trt_sparse_case_matches_dense(case_name, kwargs):
+    assert_sparse_matches_dense(
+        get_case(case_name, collision="trt", **kwargs))
 
 
-@pytest.mark.slow  # fuse2 interpret traces dominate the fast suite; BGK fuse2 stays fast via the runner odd-chunk test
-def test_trt_pallas_fuse2_matches_dense():
-    spec = pad_spec(get_case("lid_driven_cavity", n=16, collision="trt"),
-                    halo=2)
-    cc = compile_case(spec)
-    f0 = initial_f(cc)
-    f_ref = _dense_run(cc, f0, 4)
-    step = jax.jit(make_pallas_step(cc, interpret=True, ring=2, fuse=2))
-    p = pack_state(f0, jnp.asarray(np.asarray(cc.spec.mask)))
-    for t in range(2):
-        p, _ = step(p, jnp.int32(2 * t))
-    f = np.asarray(unpack_state(p))
-    interior = (slice(None), slice(2, -2), slice(2, -2), slice(None))
-    np.testing.assert_allclose(
-        f[interior], f_ref[interior], rtol=3e-6, atol=1e-7
-    )
-
-
-def test_trt_pallas_z_fixup_matches_dense():
-    """Coronary's z-axis sub-outlets exercise _fix_z_plane_windowed and
-    _row_fix under TRT."""
+def test_trt_sparse_z_fixup_matches_dense():
+    """Coronary's z-axis sub-outlets: the z-plane NEE fixups under
+    TRT."""
     spec0 = get_case("coronary", shape=(24, 20, 32), radius=4)
-    spec = pad_spec(dataclasses.replace(spec0, collision="trt"))
-    cc = compile_case(spec)
-    f0 = initial_f(cc)
-    f_ref = _dense_run(cc, f0, 4)
-    step = jax.jit(make_pallas_step(cc, interpret=True))
-    p = pack_state(f0, jnp.asarray(np.asarray(cc.spec.mask)))
-    for t in range(4):
-        p, _ = step(p, jnp.int32(t))
-    f = np.asarray(unpack_state(p))
-    interior = (slice(None), slice(1, -1), slice(1, -1), slice(None))
-    np.testing.assert_allclose(
-        f[interior], f_ref[interior], rtol=3e-6, atol=1e-7
-    )
+    assert_sparse_matches_dense(dataclasses.replace(spec0,
+                                                    collision="trt"))
 
 
 def test_trt_sparse_matches_dense():
-    from lbm_tpu.engine.sparse import (
+    from lbm_jax.engine.sparse import (
         compile_sparse,
         initial_f_sparse,
         make_sparse_step,
@@ -239,24 +195,13 @@ def test_trt_magic_wall_placement_beats_bgk():
     )
 
 
-def test_trt_series_bc_pallas_matches_dense():
-    """Pulsatile (u_mode='series') NEE under TRT on the kernel path —
+def test_trt_series_bc_sparse_matches_dense():
+    """Pulsatile (u_mode='series') NEE under TRT on the sparse path —
     closes the BC-mode x operator matrix (fixed/field/extrapolate/z
     are covered above)."""
-    spec = pad_spec(get_case("curved_vessel", n=24, nphase=2,
-                             period_steps=4, collision="trt"))
-    cc = compile_case(spec)
-    f0 = initial_f(cc)
-    f_ref = _dense_run(cc, f0, 5)
-    step = jax.jit(make_pallas_step(cc, interpret=True))
-    p = pack_state(f0, jnp.asarray(np.asarray(cc.spec.mask)))
-    for t in range(5):
-        p, _ = step(p, jnp.int32(t))
-    f = np.asarray(unpack_state(p))
-    interior = (slice(None), slice(1, -1), slice(1, -1), slice(None))
-    np.testing.assert_allclose(
-        f[interior], f_ref[interior], rtol=3e-6, atol=1e-7
-    )
+    assert_sparse_matches_dense(
+        get_case("curved_vessel", n=24, nphase=2, period_steps=4,
+                 collision="trt"), nsteps=5)
 
 
 @pytest.mark.slow
@@ -269,7 +214,7 @@ def test_trt_magic_lambda_stability_tradeoff():
     magic_lambda per case: 3/16 for wall-placement accuracy at large
     tau, a bounded tau_minus for strongly driven transients at small
     tau (documented in docs/PARITY.md)."""
-    from lbm_tpu.engine.runner import Simulation
+    from lbm_jax.engine.runner import Simulation
 
     sim = Simulation(get_case("bifurcation", collision="trt",
                               max_steps=300, time_save=100))

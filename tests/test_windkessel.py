@@ -25,12 +25,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbm_tpu.cases import get_case
-from lbm_tpu.core.units import UnitSystem
-from lbm_tpu.engine.compile import compile_case, wk_init
-from lbm_tpu.engine.runner import Simulation
-from lbm_tpu.engine.step import windkessel_update
-from lbm_tpu.geometry.mask import CellType
+from lbm_jax.cases import get_case
+from lbm_jax.core.units import UnitSystem
+from lbm_jax.engine.compile import compile_case, wk_init
+from lbm_jax.engine.runner import Simulation
+from lbm_jax.engine.step import windkessel_update
+from lbm_jax.geometry.mask import CellType
 
 _WK = (5e-4, 24000.0, 2.5e-3)  # Rp, C, Rd (lattice); Rd C = 60 steps
 
@@ -143,7 +143,7 @@ def test_wk_gspmd_sharded_matches_single_device():
     P_c consistent with the single-device run."""
     assert len(jax.devices()) == 8, "conftest must provide 8 CPU devices"
     spec = get_case("poiseuille", n=16, windkessel=_WK)
-    from lbm_tpu.parallel.mesh import lattice_mesh
+    from lbm_jax.parallel.mesh import lattice_mesh
 
     sim_1 = Simulation(spec, backend="xla")
     sim_m = Simulation(spec, backend="xla", mesh=lattice_mesh())
@@ -159,7 +159,7 @@ def test_wk_gspmd_sharded_matches_single_device():
 def test_wk_checkpoint_roundtrip(tmp_path):
     """save_sim/restore carry the windkessel state: interrupted + resumed
     equals uninterrupted."""
-    from lbm_tpu.engine import checkpoint as ckpt
+    from lbm_jax.engine import checkpoint as ckpt
 
     spec = get_case("poiseuille", n=16, windkessel=_WK)
     sim_a = Simulation(spec, backend="xla")
@@ -179,56 +179,15 @@ def test_wk_checkpoint_roundtrip(tmp_path):
         rtol=1e-6, atol=1e-9)
 
 
-def test_wk_pallas_matches_dense():
-    """Windkessel on the kernel path (VERDICT r4 next-#2): the RCR
-    outlet runs as an out-of-kernel consumer-plane fixup with the P_c
-    carry threaded through the step (collide_stream
-    ._fix_xy_plane_windowed; poiseuille's outlet is an axis-1 plane) —
-    multi-step state AND carried-P_c agreement with the dense fixup."""
-    spec = get_case("poiseuille", n=16, windkessel=_WK)
-    sim_d = Simulation(spec, backend="xla")
-    sim_p = Simulation(spec, backend="pallas")  # interpret on CPU
-    for s in (sim_d, sim_p):
-        s.run(max_steps=60, time_save=20, verbose=False)
-    np.testing.assert_allclose(
-        np.asarray(sim_p.wk), np.asarray(sim_d.wk), rtol=3e-5, atol=1e-9)
-    np.testing.assert_allclose(
-        np.asarray(sim_p.f_standard()), np.asarray(sim_d.f_standard()),
-        rtol=3e-5, atol=1e-8)
-    # residual machinery stays honest: same velsum series to fp tolerance
-    assert sim_p._last_velsum == pytest.approx(sim_d._last_velsum,
-                                               rel=1e-4)
+def test_wk_halo_step_refuses_with_guidance():
+    """The explicit shard_map halo step does not thread the P_c carry;
+    it says so and names the GSPMD path that does."""
+    from lbm_jax.parallel.halo import make_halo_step
+    from lbm_jax.parallel.mesh import lattice_mesh
 
-
-def test_wk_pallas_sharded_refuses_with_guidance():
-    from lbm_tpu.parallel.mesh import lattice_mesh
-
-    spec = get_case("poiseuille", n=16, windkessel=_WK)
-    with pytest.raises(ValueError, match="windkessel"):
-        Simulation(spec, backend="pallas", mesh=lattice_mesh())
-
-
-def test_wk_coronary_multi_outlet_pallas():
-    """The full clinical outlet configuration on the KERNEL path: main
-    x-plane RCR outlet + three z-plane RCR sub-outlets, each a windowed
-    out-of-kernel fixup threading its own P_c — agreement with the
-    dense route through the 4-element carry and the state."""
-    wk = [(1e-4, 5e3, 2e-3), (1e-4, 5e3, 1e-3),
-          (1e-4, 5e3, 4e-3), (1e-4, 5e3, 8e-3)]
-    spec = get_case("coronary", shape=(48, 24, 40), radius=5,
-                    windkessel=wk)
-    sim_d = Simulation(spec, backend="xla")
-    sim_p = Simulation(spec, backend="pallas")
-    for s in (sim_d, sim_p):
-        s.run(max_steps=60, time_save=30, verbose=False)
-    # atol floor: the sub-outlet P_c are ~1e-7..1e-3 in lattice gauge
-    # during this short transient; kernel-vs-dense op-order rounding
-    # accumulates ~1e-9 absolute over 60 steps
-    np.testing.assert_allclose(
-        np.asarray(sim_p.wk), np.asarray(sim_d.wk), rtol=3e-5, atol=1e-8)
-    np.testing.assert_allclose(
-        np.asarray(sim_p.f_standard()), np.asarray(sim_d.f_standard()),
-        rtol=3e-5, atol=1e-8)
+    cc = compile_case(get_case("poiseuille", n=16, windkessel=_WK))
+    with pytest.raises(AssertionError, match="GSPMD"):
+        make_halo_step(cc, lattice_mesh(), shard_axis=0)
 
 
 def test_wk_pulsatile_outlet_tracks_flow():
@@ -276,7 +235,7 @@ def test_wk_coronary_multi_outlet_dense_sparse():
 
 def test_wk_validation_and_init():
     """Spec validation (rho_mode, positivity) and wk_init ordering."""
-    from lbm_tpu.engine.spec import PlaneBC
+    from lbm_jax.engine.spec import PlaneBC
 
     with pytest.raises(AssertionError):
         PlaneBC(mask_value=3, axis=1, coord=5, normal=-1,
@@ -313,22 +272,14 @@ def test_wk_stress_and_wss_thread_state(backend):
     assert np.isfinite(np.asarray(acc.tawss_field())[fl]).all()
 
 
-def test_wk_pulsatile_coronary_pallas_matches_dense():
-    """The r5 clinical inlet: coronary pulsatile=(nphase, period) turns
-    the reference's steady plug into a series NEE inlet (in-kernel
-    series tables on axis 0) composed with 4 RCR outlets — kernel path
-    vs dense through the time-varying waveform."""
+def test_wk_pulsatile_coronary_sparse_matches_dense():
+    """The clinical inlet: coronary pulsatile=(nphase, period) turns the
+    reference's steady plug into a series NEE inlet composed with 4 RCR
+    outlets — sparse vs dense through the time-varying waveform."""
+    from backend_parity import assert_sparse_matches_dense
+
     wk = [(1e-4, 5e3, 2e-3), (1e-4, 5e3, 1e-3),
           (1e-4, 5e3, 4e-3), (1e-4, 5e3, 8e-3)]
     spec = get_case("coronary", shape=(48, 24, 40), radius=5,
                     windkessel=wk, pulsatile=(4, 8))
-    sim_d = Simulation(spec, backend="xla")
-    sim_p = Simulation(spec, backend="pallas")
-    for s in (sim_d, sim_p):
-        s.run(max_steps=40, time_save=20, verbose=False)
-    np.testing.assert_allclose(
-        np.asarray(sim_p.wk), np.asarray(sim_d.wk), rtol=3e-5,
-        atol=1e-8)
-    np.testing.assert_allclose(
-        np.asarray(sim_p.f_standard()), np.asarray(sim_d.f_standard()),
-        rtol=3e-5, atol=1e-8)
+    assert_sparse_matches_dense(spec, nsteps=40, rtol=3e-5, atol=1e-8)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Adjoint outlet-calibration demo on the real TPU.
+"""Adjoint outlet-calibration demo on one GPU.
 
 The FFR-CT-class calibration task: the synthetic coronary tree gets a
 velocity inlet and 4 RCR outlet terminations, and we must choose the
@@ -12,7 +12,7 @@ can never provide.
 
 Stages:
   1. fit: optax.adam on log Rd, loss = ||split(rollout) - target||^2,
-     one forward+backward per iterate on chip.
+     one forward+backward per iterate on the device.
   2. verify: run the PLAIN production Simulation with the fitted RCRs
      to convergence and measure the split with the clinical plane
      diagnostics — the fit must transfer out of the adjoint horizon.
@@ -48,15 +48,11 @@ def main():
     ap.add_argument("--verify-steps", type=int, default=4000)
     args = ap.parse_args()
 
-    if os.environ.get("LBM_TPU_PLATFORM"):
-        import jax
-        jax.config.update("jax_platforms",
-                          os.environ["LBM_TPU_PLATFORM"])
     import jax
 
-    from lbm_tpu.cases import get_case
-    from lbm_tpu.engine.adjoint import fit_windkessel, wk_params
-    from lbm_tpu.engine.diagnostics import plane_flux
+    from lbm_jax.cases import get_case
+    from lbm_jax.engine.adjoint import fit_windkessel, wk_params
+    from lbm_jax.engine.diagnostics import plane_flux
 
     shape = tuple(int(s) for s in args.shape.split(","))
     target = np.asarray([float(s) for s in args.target.split(",")],
@@ -83,7 +79,7 @@ def main():
 
     # stage 2: the fitted terminations must transfer to the production
     # solver at a convergence-scale horizon
-    from lbm_tpu.engine.runner import Simulation
+    from lbm_jax.engine.runner import Simulation
 
     spec_v = get_case("coronary", shape=shape, radius=args.radius,
                       windkessel=[tuple(map(float, row))

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Contrast washout + residence time on the coronary tree (on chip).
+"""Contrast washout + residence time on the coronary tree (one GPU).
 
 The transport stage the reference's velocity/pressure output feeds in a
 clinic: inject a contrast bolus at the inlet of the CONVERGED coronary
@@ -39,28 +39,16 @@ def main():
                     "the default tree peaks near step 6000)")
     ap.add_argument("--D", type=float, default=0.02,
                     help="lattice diffusivity")
-    ap.add_argument("--backend", default="pallas",
-                    choices=("pallas", "xla"),
-                    help="transport backend (the D3Q7 Pallas kernel "
-                    "or the dense-XLA pass)")
     ap.add_argument("--vtk", default=None,
                     help="write AGE + CONTRAST fields here")
     args = ap.parse_args()
 
-    if os.environ.get("LBM_TPU_PLATFORM"):
-        import jax
-        jax.config.update("jax_platforms",
-                          os.environ["LBM_TPU_PLATFORM"])
     import jax
     import jax.numpy as jnp
 
-    from lbm_tpu.cases import get_case
-    from lbm_tpu.engine.runner import Simulation
-    if args.backend == "pallas":
-        from lbm_tpu.kernels.scalar_stream import (
-            ScalarTransportPallas as ScalarTransport)
-    else:
-        from lbm_tpu.engine.scalar import ScalarTransport
+    from lbm_jax.cases import get_case
+    from lbm_jax.engine.runner import Simulation
+    from lbm_jax.engine.scalar import ScalarTransport
 
     shape = tuple(int(s) for s in args.shape.split(","))
     spec = get_case("coronary", shape=shape, radius=args.radius)
@@ -119,14 +107,14 @@ def main():
     assert np.isfinite(a).all() and a.min() >= 0
 
     if args.vtk:
-        from lbm_tpu.io.vtk import write_structured_points
+        from lbm_jax.io.vtk import write_structured_points
         write_structured_points(
             args.vtk,
             {"AGE_s": age * ct,
              "CONTRAST": np.asarray(st.concentration())},
             spacing=spec.units.CH, origin=(0.0, 0.0, 0.0),
             crops=spec.vtk_crops, binary=True,
-            header="lbm_tpu washout/residence-time demo")
+            header="lbm_jax washout/residence-time demo")
         print(f"vtk: {args.vtk} ({os.path.getsize(args.vtk)/1e6:.1f} MB)")
     print("OK")
 

@@ -13,7 +13,7 @@ flux through the lesion is pinned and dp reads the lesion loss.
 
 Usage: python tools/ffr_sweep.py [--shape 128,64,96] [--radius 10]
          [--sev 0,0.2,0.3,0.4,0.5] [--hyper 3.5] [--steps 4000]
-Smoke: LBM_TPU_PLATFORM=cpu python tools/ffr_sweep.py \
+Smoke: JAX_PLATFORMS=cpu python tools/ffr_sweep.py \
          --shape 64,32,48 --radius 5 --sev 0,0.4 --steps 150
 """
 
@@ -42,15 +42,11 @@ def main():
                     "magic Lambda) stabilizes it; 0 disables")
     args = ap.parse_args()
 
-    if os.environ.get("LBM_TPU_PLATFORM"):
-        import jax
-        jax.config.update("jax_platforms", os.environ["LBM_TPU_PLATFORM"])
-
     import numpy as np
 
-    from lbm_tpu.cases import get_case
-    from lbm_tpu.engine.diagnostics import ffr
-    from lbm_tpu.engine.runner import Simulation
+    from lbm_jax.cases import get_case
+    from lbm_jax.engine.diagnostics import ffr
+    from lbm_jax.engine.runner import Simulation
 
     shape = tuple(int(s) for s in args.shape.split(","))
     sevs = [float(s) for s in args.sev.split(",")]

@@ -36,20 +36,14 @@ def main():
                     "bifurcation labeler expects.")
     args = ap.parse_args()
 
-    platform = os.environ.get("LBM_TPU_PLATFORM")
-    if platform:
-        import jax
-
-        jax.config.update("jax_platforms", platform)
-
     import numpy as np
 
-    from lbm_tpu.cases import get_case
-    from lbm_tpu.engine.runner import Simulation
-    from lbm_tpu.geometry.io import save_geo
-    from lbm_tpu.geometry.mask import CellType
-    from lbm_tpu.geometry.preprocess import stl_to_occupancy
-    from lbm_tpu.io.snapshots import compare_midplane
+    from lbm_jax.cases import get_case
+    from lbm_jax.engine.runner import Simulation
+    from lbm_jax.geometry.io import save_geo
+    from lbm_jax.geometry.mask import CellType
+    from lbm_jax.geometry.preprocess import stl_to_occupancy
+    from lbm_jax.io.snapshots import compare_midplane
 
     t0 = time.perf_counter()
 
@@ -60,7 +54,7 @@ def main():
     # the solver grid (spacing = CH in the STL's mm units, centered),
     # open tube ends extruded to the y=1/81 label planes like the
     # shipped preprocessing did.
-    from lbm_tpu.geometry.preprocess import extrude_open_ends
+    from lbm_jax.geometry.preprocess import extrude_open_ends
 
     flag = stl_to_occupancy(args.stl, (64, 83, 32),
                             spacing=args.spacing)

@@ -1,7 +1,7 @@
-// Native geometry runtime for lbm_tpu: triangle-mesh smoothing and
+// Native geometry runtime for lbm_jax: triangle-mesh smoothing and
 // STL voxelization.
 //
-// These are the TPU-era replacements for the reference's offline MATLAB/C
+// These are the in-repo replacements for the reference's offline MATLAB/C
 // pipeline (SURVEY.md sections 2.2-2.3): the three smoothpatch MEX kernels
 // (vertex adjacency, curvature-weighted and inverse-distance Laplacian
 // smoothing) and the geo_preprocess voxelizer the reference describes but
@@ -9,7 +9,7 @@
 // from the standard literature (umbrella/cotangent Laplacian smoothing,
 // parity ray casting), not ports.
 //
-// C ABI, consumed via ctypes (lbm_tpu/geometry/native.py).
+// C ABI, consumed via ctypes (lbm_jax/geometry/native.py).
 
 #include <cmath>
 #include <cstdint>
